@@ -4,7 +4,7 @@ The reference's L-BFGS workload was a deliberate optimizer choice
 (AutoElMar22LBFGS_model.py:128-137 with the vendored
 functions/LBFGS.py Powell-damped Wolfe implementation); this harness
 answers whether that choice pays off HERE, where every line-search
-probe is a compiled fused-kernel call instead of a DENISE subprocess.
+probe is a compiled gradient call instead of a DENISE subprocess.
 
 Budget accounting: the unit is one SHOT-GRADIENT (fwd+adjoint of one
 shot).  Adam spends `shots_per_iter` per step; L-BFGS spends
@@ -12,9 +12,8 @@ shot).  Adam spends `shots_per_iter` per step; L-BFGS spends
 reports its probe count in the state (ZoomLinesearchInfo), and the
 accepted probe's value/grad pair is REUSED for the next iteration's
 gradient (optax.value_and_grad_from_state), so probes are the only
-propagator cost.  Line-search probes evaluate value+grad (the fused
-kernel computes both in one pass), so a probe and an Adam gradient
-cost the same.
+propagator cost.  Line-search probes evaluate value+grad in one
+autodiff pass, so a probe and an Adam gradient cost the same.
 
 Usage:
     python benchmarks/adam_vs_lbfgs.py --budget 7000 \
@@ -36,9 +35,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".cache", "jax"))
 
 
 def _linesearch_steps(opt_state) -> int:
@@ -95,6 +91,8 @@ def run_arm(workload: str, budget: int, dataroot: str | None,
 
 
 def main(argv=None):
+    from physicsbasedfwi2_tpu.utils.cache import enable_persistent_cache
+    enable_persistent_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--budget", type=int, default=7000,
                    help="shot-gradient budget per arm")

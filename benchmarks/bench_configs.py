@@ -26,14 +26,11 @@ import json
 import os
 import sys
 import time
+import traceback
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".cache", "jax"))
 
 # (BASELINE.json config name, workload registry name)
 CONFIGS = [
@@ -64,14 +61,19 @@ def bench_one(workload: str, iters: int) -> dict:
     shots = cfg.shots_per_iter or cfg.num_shots
     cells = cfg.nz * cfg.nx
     return {
-        "seconds_per_iteration": round(dt, 5),
-        "shots_per_sec": round(shots / dt, 2),
-        "mcell_steps_per_sec": round(cells * cfg.nt * shots / dt / 1e6, 1),
+        "seconds_per_iteration": dt,
+        "shots_per_sec": shots / dt,
+        "mcell_steps_per_sec": cells * cfg.nt * shots / dt / 1e6,
         "path": getattr(eng, "physics_path", "n/a"),
+        "device": {"platform": jax.devices()[0].platform,
+                   "kind": jax.devices()[0].device_kind,
+                   "count": len(jax.devices())},
     }
 
 
 def main(argv=None):
+    from physicsbasedfwi2_tpu.utils.cache import enable_persistent_cache
+    enable_persistent_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--only", default=None,
@@ -80,17 +82,22 @@ def main(argv=None):
 
     rows = ([(f"only_{args.only}", args.only)] if args.only
             else CONFIGS)
+    failed = []
     for config_name, workload in rows:
         try:
             r = bench_one(workload, args.iters)
         except Exception as e:  # keep the sweep alive per-config
+            traceback.print_exc()
             print(json.dumps({"config": config_name,
                               "workload": workload,
                               "error": f"{type(e).__name__}: {e}"}),
                   flush=True)
+            failed.append(config_name)
             continue
         print(json.dumps({"config": config_name, "workload": workload,
                           **r}), flush=True)
+    if failed:
+        sys.exit(f"failed configs: {', '.join(failed)}")
 
 
 if __name__ == "__main__":

@@ -6,8 +6,8 @@ Edition on 30 CPU MPI ranks (NPROCX=6 x NPROCY=5) with file-based
 coupling.  The reference repo preserves no DENISE wall-clock numbers;
 a 2D P-SV staggered-grid code of this size on ~30 2010s-class CPU
 cores typically needs tens of seconds per 5-shot gradient (fwd +
-adjoint + SU file IO).  We report absolute TPU numbers:
-iteration wall-clock and FD cell-steps/s.
+adjoint + SU file IO).  We report absolute numbers: iteration
+wall-clock and FD cell-steps/s, with the device they ran on.
 
 Usage: python benchmarks/bench_elastic.py
 """
@@ -23,10 +23,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".cache", "jax"))
-
 from physicsbasedfwi2_tpu.geo import Grid2D, ricker
 from physicsbasedfwi2_tpu.geo.acquisition import Acquisition
 from physicsbasedfwi2_tpu.ops import ElasticConfig, simulate_elastic
@@ -34,6 +30,8 @@ import numpy as np
 
 
 def main():
+    from physicsbasedfwi2_tpu.utils.cache import enable_persistent_cache
+    enable_persistent_cache()
     nz, nx, dx = 100, 300, 20.0
     nt, dt = 3334, 0.0015  # 5.0 s record
     ns, nr = 5, 298

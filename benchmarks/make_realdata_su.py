@@ -7,7 +7,7 @@ with vs and rho pinned by the DENISE bounds (VSUPPERLIM = VSLOWERLIM =
 field data ships in this environment, so this script manufactures the
 same artifact honestly: a canonical SEAM-structured marine vp slice,
 gathers simulated with the split-PML reference scheme
-(ops/elastic.py) — NOT the fused sponge kernel the inversion runs, so
+(ops/elastic.py) — NOT the 5-field sponge scheme the inversion runs, so
 the ingest-and-invert path faces a real scheme mismatch — written as
 little-endian SU shot files and ingested through the same
 ``fwi-prep --su-obs`` path a user would feed field tapes through.

@@ -15,7 +15,7 @@ than the one that generated the gathers — the fixed-rho floor this
 tool measured at 2/3 of the landscape's dynamic range, which motivated
 the --rho-start true known-density prep mode).
 
-Usage (TPU):
+Usage:
     python benchmarks/misfit_linescan.py --dataroot dataroots/marm_elastic_kd \
         [--drift-run runs_r4/probe_b_decay] [--fc 20] [--workload marmousi_elastic]
 """
@@ -30,12 +30,6 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".cache", "jax"))
-
 import jax.numpy as jnp
 
 from physicsbasedfwi2_tpu.engine import get_workload
@@ -45,6 +39,8 @@ from physicsbasedfwi2_tpu.ops import trace_normalize
 
 
 def main(argv=None):
+    from physicsbasedfwi2_tpu.utils.cache import enable_persistent_cache
+    enable_persistent_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--dataroot", required=True)
     p.add_argument("--workload", default="marmousi_elastic")

@@ -4,8 +4,8 @@ Marmousi2 / SEAM slices) and materialize the training data tree.
 The reference's datasets/ directory holds download+combine tools and
 its FWI npy trees were prepared offline from the published grids
 (SURVEY.md §2.5; the trainA/.npy gathers were generated with deepwave
-and DENISE outside the repo).  This module is that missing prep step,
-TPU-native: read the published grid (SEG-Y, flat float32 .bin, or
+and DENISE outside the repo).  This module is that missing prep step:
+read the published grid (SEG-Y, flat float32 .bin, or
 .npy), resample to the workload grid, synthesize the observed data
 with OUR propagators, and write the unalignedVelABCD2 /
 unalignedVelABCDEl contract that the engines consume.
@@ -135,15 +135,13 @@ def prepare_acoustic_tree(vp: np.ndarray, out_root: str, *,
     reference normalizes observed data raw while removing the direct
     from predictions only (networks.py:5418 vs 5467), which is
     consistent only because its trainA files lack the direct.  The
-    gathers are simulated with the same operator the engine inverts
-    with on the current platform (fused Pallas kernel on TPU, XLA
-    scheme elsewhere) so the misfit is zero at the true model."""
-    import jax
+    gathers are simulated with the operator the engine inverts with
+    (``ops.select_operator``) so the misfit is zero at the true
+    model."""
     import jax.numpy as jnp
     from physicsbasedfwi2_tpu.geo import Grid2D, check_cfl, ricker, \
         surface_line
-    from physicsbasedfwi2_tpu.ops import (AcousticConfig,
-                                          simulate_acoustic)
+    from physicsbasedfwi2_tpu.ops import AcousticConfig, select_operator
     from physicsbasedfwi2_tpu.data.synthetic import smooth_model
 
     nz, nx = vp.shape
@@ -155,13 +153,8 @@ def prepare_acoustic_tree(vp: np.ndarray, out_root: str, *,
                        rcv_depth=0)
     geom = tuple(jnp.asarray(a) for a in
                  (acq.src_z, acq.src_x, acq.rcv_z, acq.rcv_x))
-    if jax.devices()[0].platform == "tpu":
-        from physicsbasedfwi2_tpu.ops.pallas_scalar2 import forward2
-        sim = lambda m: np.asarray(forward2(jnp.asarray(m), wav,
-                                            *geom, cfg))
-    else:
-        sim = lambda m: np.asarray(simulate_acoustic(jnp.asarray(m),
-                                                     wav, *geom, cfg))
+    _, simulate = select_operator("acoustic")
+    sim = lambda m: np.asarray(simulate(jnp.asarray(m), wav, *geom, cfg))
     direct = sim(np.full_like(vp, water_vel))
 
     rng = np.random.default_rng(test_seed)
@@ -224,7 +217,7 @@ def prepare_elastic_tree(vp: np.ndarray, out_root: str, *,
     becomes an exact global minimum of the data misfit."""
     import jax.numpy as jnp
     from physicsbasedfwi2_tpu.geo import Grid2D, check_cfl, ricker
-    from physicsbasedfwi2_tpu.ops import ElasticConfig, simulate_elastic
+    from physicsbasedfwi2_tpu.ops import ElasticConfig, select_operator
     from physicsbasedfwi2_tpu.data.synthetic import (make_elastic_model,
                                                      smooth_model)
 
@@ -254,25 +247,15 @@ def prepare_elastic_tree(vp: np.ndarray, out_root: str, *,
                           else None))
     geom = tuple(jnp.asarray(a) for a in
                  (acq.src_z, acq.src_x, acq.rcv_z, acq.rcv_x))
-    # simulate with the operator the engine inverts with on this
-    # platform (fused Pallas ring kernel on TPU, XLA elsewhere) so the
-    # stored gathers are operator-consistent with the inversion
-    # obs_scheme="reference" instead forces the split-PML reference
-    # scheme (ops/elastic.py) regardless of platform — a DIFFERENT
-    # discretization from the fast sponge scheme the engine inverts
-    # with, which kills the inverse crime: the stored gathers carry
-    # scheme/boundary discretization error the inversion cannot fit,
-    # like the reference's DENISE-generated obs inverted by a separate
-    # run (networks.py:7733).
-    import jax as _jax
-    if obs_scheme == "reference":
-        sim_el = simulate_elastic
-    elif _jax.devices()[0].platform == "tpu":
-        from physicsbasedfwi2_tpu.ops.pallas_elastic_fused import (
-            simulate_elastic_ring)
-        sim_el = simulate_elastic_ring
-    else:
-        sim_el = simulate_elastic
+    # obs_scheme="auto" simulates with the operator the engine
+    # inverts with (the 5-field sponge scheme), so the stored gathers
+    # are operator-consistent with the inversion.  "reference" forces
+    # the split-PML scheme (ops/elastic.py) — a DIFFERENT
+    # discretization, which kills the inverse crime: the stored
+    # gathers carry scheme/boundary discretization error the inversion
+    # cannot fit, like the reference's DENISE-generated obs inverted
+    # by a separate run (networks.py:7733).
+    _, sim_el = select_operator("elastic", obs_scheme)
     ovx, ovz = sim_el(jnp.asarray(vp_t), jnp.asarray(vs_t),
                       jnp.asarray(rho_t), wav, *geom, cfg)
     b = np.stack([vp_t, vs_t, rho_t]) / 100.0
@@ -448,8 +431,8 @@ def main(argv=None):
     p.add_argument("--obs-scheme", choices=("auto", "reference"),
                    default="auto",
                    help="elastic observed-data propagator: 'auto' = "
-                        "the scheme the engine inverts with (fused "
-                        "ring kernel on TPU); 'reference' = the "
+                        "the scheme the engine inverts with (5-field "
+                        "sponge); 'reference' = the "
                         "split-PML scheme (ops/elastic.py) — a "
                         "different discretization, so the inversion "
                         "faces real modeling error instead of an "

@@ -18,8 +18,7 @@ import jax.numpy as jnp
 from physicsbasedfwi2_tpu.geo import Grid2D, check_cfl, ricker, surface_line
 from physicsbasedfwi2_tpu.geo.acquisition import Acquisition
 from physicsbasedfwi2_tpu.ops import (
-    AcousticConfig, ElasticConfig, simulate_acoustic, simulate_elastic,
-    trace_normalize,
+    AcousticConfig, ElasticConfig, select_operator, trace_normalize,
 )
 from physicsbasedfwi2_tpu.geo.filters import lowpass_filter_time
 
@@ -108,7 +107,7 @@ class SyntheticAcousticWorkload:
     @classmethod
     def build(cls, *, nz=151, nx=200, dx=10.0, nt=4001, dt=0.001,
               pml_width=20, freq=8.0, num_shots=18, num_receivers=200,
-              seed=0, water_rows=26, chunk=64, backend="xla"):
+              seed=0, water_rows=26, chunk=64):
         grid = Grid2D(nz=nz, nx=nx, dx=dx, nt=nt, dt=dt,
                       pml_width=pml_width)
         cfg = AcousticConfig(grid=grid, chunk=chunk, vmax_pml=5000.0)
@@ -122,12 +121,8 @@ class SyntheticAcousticWorkload:
             np.asarray(vp_true), preserve_rows=water_rows))
         geom = tuple(jnp.asarray(a) for a in
                      (acq.src_z, acq.src_x, acq.rcv_z, acq.rcv_x))
-        if backend == "pallas":
-            from physicsbasedfwi2_tpu.ops.pallas_kernels import (
-                acoustic_forward_pallas)
-            obs = acoustic_forward_pallas(vp_true, wav, *geom, cfg)
-        else:
-            obs = simulate_acoustic(vp_true, wav, *geom, cfg)
+        _, simulate = select_operator("acoustic")
+        obs = simulate(vp_true, wav, *geom, cfg)
         return cls(grid=grid, cfg=cfg, acq=acq, wavelet=wav,
                    vp_true=vp_true, vp_start=vp_start, obs=obs,
                    obs_norm=trace_normalize(obs))
@@ -191,8 +186,11 @@ class SyntheticElasticWorkload:
                               if rcv_follow_seabed else None))
         geom = tuple(jnp.asarray(a) for a in
                      (acq.src_z, acq.src_x, acq.rcv_z, acq.rcv_x))
-        ovx, ovz = simulate_elastic(jnp.asarray(vp_t), jnp.asarray(vs_t),
-                                    jnp.asarray(rho_t), wav, *geom, cfg)
+        # the split-PML reference: engines whose inversion operator
+        # differs regenerate these gathers with their own
+        _, simulate = select_operator("elastic", "reference")
+        ovx, ovz = simulate(jnp.asarray(vp_t), jnp.asarray(vs_t),
+                            jnp.asarray(rho_t), wav, *geom, cfg)
         if fc_low:
             ovx = lowpass_filter_time(ovx, fc_low, dt, axis=1)
             ovz = lowpass_filter_time(ovz, fc_low, dt, axis=1)

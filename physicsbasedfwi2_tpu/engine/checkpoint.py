@@ -1,43 +1,65 @@
-"""Full train-state checkpointing with orbax.
+"""Full train-state checkpointing as numpy ``.npz`` files.
 
 The reference checkpoints only network weights (base_model.py:154-170)
 — optimizer/scheduler state is lost on resume (SURVEY.md §5).  Here
-the full state (params + optimizer + epoch + rng) round-trips.
+the full state (params + optimizer + epoch) round-trips.  A pytree is
+stored as one array per leaf, keyed by its ``jax.tree_util.keystr``
+path, and restored into a template of the same structure: no pickle,
+so loading a file runs no code from it.
 """
 
 from __future__ import annotations
 
 import os
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 
-def save_state(path: str, state: dict):
-    """Checkpoint a pytree dict {params, opt_state, epoch, ...}."""
-    import orbax.checkpoint as ocp
-    path = os.path.abspath(path)
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(path, state, force=True)
-    ckptr.wait_until_finished()
+def _npz_path(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
 
 
-def restore_state(path: str, template: dict) -> dict:
-    import orbax.checkpoint as ocp
-    path = os.path.abspath(path)
-    ckptr = ocp.StandardCheckpointer()
-    return ckptr.restore(path, template)
+def save_tree(path: str, tree) -> str:
+    """Write every leaf of ``tree`` to ``path`` (.npz); returns the
+    file name."""
+    path = _npz_path(os.path.abspath(path))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **{jax.tree_util.keystr(k): np.asarray(v)
+                      for k, v in jax.tree_util.tree_leaves_with_path(tree)})
+    return path
 
 
-def save_engine(engine, path: str, *, epoch: int = 0):
-    state = {"params": engine.params, "opt_state": engine.opt_state,
-             "epoch": np.asarray(epoch)}
-    save_state(path, state)
+def restore_tree(path: str, template):
+    """Read a tree written by :func:`save_tree` into ``template``'s
+    structure; raises ValueError on a leaf whose shape differs."""
+    with np.load(_npz_path(path)) as z:
+        flat = {k: z[k] for k in z.files}
+
+    def fill(kp, leaf):
+        key = jax.tree_util.keystr(kp)
+        arr = flat[key]
+        if arr.shape != np.shape(leaf):
+            raise ValueError(f"checkpoint leaf {key} has shape {arr.shape}, "
+                             f"expected {np.shape(leaf)}")
+        return jnp.asarray(arr)
+
+    return jax.tree_util.tree_map_with_path(fill, template)
+
+
+def save_engine(engine, path: str, *, epoch: int = 0) -> str:
+    """Checkpoint ``{params, opt_state, epoch}`` of an engine."""
+    return save_tree(path, {"params": engine.params,
+                            "opt_state": engine.opt_state,
+                            "epoch": np.asarray(epoch)})
 
 
 def restore_engine(engine, path: str) -> int:
-    template = {"params": engine.params, "opt_state": engine.opt_state,
-                "epoch": np.asarray(0)}
-    state = restore_state(path, template)
+    """Restore a :func:`save_engine` checkpoint; returns its epoch."""
+    state = restore_tree(path, {"params": engine.params,
+                                "opt_state": engine.opt_state,
+                                "epoch": np.asarray(0)})
     engine.params = state["params"]
     engine.opt_state = state["opt_state"]
     return int(state["epoch"])

@@ -380,7 +380,9 @@ class ExperimentConfig:
     # propagator
     order: int = 4
     chunk: int = 64
-    backend: str = "auto"              # auto | pallas | xla
+    backend: str = "auto"              # ops.select_operator scheme:
+                                        # auto (inversion operator) |
+                                        # reference (split-PML)
 
     # bookkeeping
     save_dir: str = "./checkpoints"

@@ -50,7 +50,7 @@ def evaluate(cfg, *, epoch="latest", realizations: int = 1,
 def main(argv=None):
     from physicsbasedfwi2_tpu.utils.cache import enable_persistent_cache
     enable_persistent_cache()
-    p = argparse.ArgumentParser(description="TPU-native FWI evaluation")
+    p = argparse.ArgumentParser(description="FWI evaluation")
     p.add_argument("--workload", default="marmousi_acoustic",
                    choices=list_workloads())
     p.add_argument("--name", default=None)

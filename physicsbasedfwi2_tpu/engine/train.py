@@ -182,7 +182,7 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
         base_options.py:53-54).
     profile_dir: capture a jax.profiler trace of the first
         ``profile_epochs`` epochs (the reference only had wall-clock
-        prints; this is the TPU-native upgrade, SURVEY §5 tracing).
+        prints; this is the upgrade SURVEY §5 tracing asks for).
     engine: drive a pre-built engine instead of create_engine(cfg)
         (programmatic/test use).
 
@@ -345,7 +345,7 @@ def train(cfg: ExperimentConfig, *, epochs: int | None = None,
 def main(argv=None):
     from physicsbasedfwi2_tpu.utils.cache import enable_persistent_cache
     enable_persistent_cache()
-    p = argparse.ArgumentParser(description="TPU-native FWI training")
+    p = argparse.ArgumentParser(description="FWI training")
     p.add_argument("--workload", default="marmousi_acoustic",
                    choices=list_workloads())
     p.add_argument("--name", default=None)

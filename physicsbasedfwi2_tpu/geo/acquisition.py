@@ -2,7 +2,7 @@
 
 The reference builds geometry as float coordinate tensors fed to
 deepwave (networks.py:5346-5354) or DENISE api.Receivers/Sources
-(networks.py:7665-7666).  On TPU we keep geometry as *integer grid
+(networks.py:7665-7666).  Here geometry is kept as *integer grid
 indices* (static shapes, gather/scatter-friendly) plus the physical
 spacing needed to reconstruct coordinates.
 """

@@ -5,7 +5,7 @@ Capability-equivalents of the reference's Auto* net family
 shot gathers -> 8-dim latent -> conv decoder -> velocity map; elastic
 two-branch variant AutoElMarmousiMar22_Net, networks.py:7215-7553).
 
-TPU-first redesign: NHWC, shape-agnostic (the reference hard-codes
+Redesign: NHWC, shape-agnostic (the reference hard-codes
 151x200 Linear sizes), GroupNorm, and the physics-facing output
 transforms (range-scaling, water-pinning, low-frequency anchoring)
 are *separate pure functions* so the same net serves every workload.
@@ -18,7 +18,7 @@ from collections.abc import Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from physicsbasedfwi2_tpu.models import nn
 
 from physicsbasedfwi2_tpu.models.blocks import (
     CBAM, ConvBlock, Down, Up, scale_to_range, pin_water,

@@ -1,9 +1,9 @@
-"""Reusable Flax building blocks for the generator zoo.
+"""Reusable building blocks for the generator zoo (models.nn modules).
 
 Capability-equivalents of the reference's block library
 (models/networks.py:2276-2570 unetConv2/unetDown/autoUp*, models/
 cbam.py CBAM, models/resunet_modules.py ASPP/SE) — re-designed for
-TPU: NHWC layout, GroupNorm instead of BatchNorm (no cross-step
+jit: NHWC layout, GroupNorm instead of BatchNorm (no cross-step
 running stats under jit), bilinear resize + conv upsampling.
 """
 
@@ -13,7 +13,7 @@ from collections.abc import Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from physicsbasedfwi2_tpu.models import nn
 
 
 def num_groups_for(channels: int, cap: int = 8) -> int:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 
 import jax.numpy as jnp
-from flax import linen as nn
+from physicsbasedfwi2_tpu.models import nn
 
 
 class AffineCoupling(nn.Module):
@@ -60,7 +60,7 @@ class LatentFlow(nn.Module):
         blocks = [AffineCoupling(self.hidden, swap=bool(i % 2))
                   for i in range(self.n_blocks)]
         seq = reversed(blocks) if reverse else blocks
-        # flax requires static module call order; build both orders
+        # submodule names follow construction order; build both orders
         if reverse:
             for blk in list(blocks)[::-1]:
                 z, ld = blk(z, reverse=True)

@@ -9,7 +9,7 @@ Lp loss (models/custom_losses.py:22).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import linen as nn
+from physicsbasedfwi2_tpu.models import nn
 
 
 class SpectralConv1d(nn.Module):

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from physicsbasedfwi2_tpu.models import nn
 
 from physicsbasedfwi2_tpu.models.blocks import num_groups_for
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 from collections.abc import Sequence
 
 import jax.numpy as jnp
-from flax import linen as nn
+from physicsbasedfwi2_tpu.models import nn
 
 from physicsbasedfwi2_tpu.models.blocks import (
     ASPP, CBAM, ConvBlock, Down, ResidualConv, SqueezeExcite, Up, UpCat,

@@ -15,7 +15,7 @@ from collections.abc import Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from physicsbasedfwi2_tpu.models import nn
 
 from physicsbasedfwi2_tpu.models.autoencoders import Decoder2D, Encoder2D
 

@@ -1,5 +1,6 @@
-"""Differentiable wave-physics compute ops (the TPU-native
-replacement for the reference's deepwave / DENISE / Devito engines)."""
+"""Differentiable wave-physics compute ops (the replacement for the
+reference's deepwave / DENISE / Devito engines), written in plain
+``jax.numpy``/``lax`` and compiled by XLA."""
 
 from physicsbasedfwi2_tpu.ops.acoustic import (
     simulate_acoustic,
@@ -11,6 +12,7 @@ from physicsbasedfwi2_tpu.ops.elastic import (
     elastic_gradient,
     ElasticConfig,
 )
+from physicsbasedfwi2_tpu.ops.elastic_fast import simulate_elastic_fast
 from physicsbasedfwi2_tpu.ops.misfit import (
     trace_normalize,
     l1_misfit,
@@ -26,36 +28,53 @@ from physicsbasedfwi2_tpu.ops.gradproc import (
 )
 from physicsbasedfwi2_tpu.ops.ssim import ssim
 
+# (physics, scheme) -> (physics_path name, propagator).  "auto" is the
+# operator the engines invert with, and so the one `fwi-prep` simulates
+# observed data with by default (misfit exactly zero at the true
+# model); "reference" is the split-PML scheme, a different
+# discretization for crime-free observed data.
+_OPERATORS = {
+    ("acoustic", "auto"): ("xla", simulate_acoustic),
+    ("acoustic", "reference"): ("xla", simulate_acoustic),
+    ("elastic", "auto"): ("fast", simulate_elastic_fast),
+    ("elastic", "reference"): ("reference", simulate_elastic),
+}
 
-def acoustic_pallas(*args, **kw):
-    """Differentiable Pallas TPU fast path (lazy import; TPU only).
 
-    ~4x faster than the XLA scan path on a v5e chip: the whole time
-    loop runs in VMEM (see ops/pallas_kernels.py, ops/pallas_adjoint.py).
-    Same contract as :func:`simulate_acoustic`; gradient w.r.t. vp.
-    Requires each shot's receivers to share one grid row.
+def select_operator(physics: str, scheme: str = "auto"):
+    """The one propagator selector, shared by data prep, synthetic
+    workloads, the engines and the benchmark.
+
+    Args:
+        physics: "acoustic" or "elastic".
+        scheme: "auto" (the inversion operator: ``simulate_acoustic``;
+            the 5-field sponge ``simulate_elastic_fast``) or
+            "reference" (``simulate_acoustic``; the split-PML
+            ``simulate_elastic``).
+
+    Returns:
+        ``(path, simulate)``: the physics-path name the engines log
+        ("xla", "fast" or "reference") and the propagator.
     """
-    from physicsbasedfwi2_tpu.ops.pallas_adjoint import (
-        acoustic_pallas as _impl)
-    return _impl(*args, **kw)
+    if scheme == "pallas":
+        raise ValueError(
+            "scheme 'pallas' named the removed Pallas kernels (fused "
+            "loss+grad); use 'auto' (the XLA inversion operator) or "
+            "'reference'")
+    try:
+        return _OPERATORS[(physics, scheme)]
+    except KeyError:
+        raise ValueError(
+            f"no operator for physics={physics!r}, scheme={scheme!r}; "
+            f"known: {sorted(_OPERATORS)}") from None
 
-
-def select_acoustic(backend: str = "auto"):
-    """Pick the propagator implementation: 'pallas' | 'xla' | 'auto'
-    (pallas on TPU, xla elsewhere)."""
-    import jax
-    if backend == "xla":
-        return simulate_acoustic
-    if backend == "pallas":
-        return acoustic_pallas
-    return (acoustic_pallas if jax.devices()[0].platform == "tpu"
-            else simulate_acoustic)
 
 __all__ = [
     "simulate_acoustic",
     "acoustic_gradient",
     "AcousticConfig",
     "simulate_elastic",
+    "simulate_elastic_fast",
     "elastic_gradient",
     "ElasticConfig",
     "trace_normalize",
@@ -68,6 +87,5 @@ __all__ = [
     "taper_top",
     "rescale_to_model",
     "ssim",
-    "acoustic_pallas",
-    "select_acoustic",
+    "select_operator",
 ]

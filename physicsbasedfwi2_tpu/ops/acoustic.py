@@ -1,6 +1,6 @@
 """Differentiable 2D scalar acoustic propagator.
 
-TPU-native replacement for deepwave's ``scalar.Propagator`` (reference
+Replacement for deepwave's ``scalar.Propagator`` (reference
 /root/reference/models/networks.py:10, call sites e.g. 5408-5464):
 first-order velocity–pressure staggered-grid finite differences
 (4th-order space, leapfrog time) with split-field PML, time-stepped by
@@ -128,7 +128,7 @@ def acoustic_gradient(vp, loss_fn, wavelet, src_z, src_x, rcv_z, rcv_x,
                       cfg: AcousticConfig):
     """(loss, dJ/dvp) for an arbitrary data-misfit ``loss_fn(pred)``.
 
-    This is the TPU equivalent of the reference's
+    This is the equivalent of the reference's
     ``lossinner.backward(); net1out1.grad`` adjoint extraction
     (networks.py:5491): one reverse-mode pass through the scan.
     """

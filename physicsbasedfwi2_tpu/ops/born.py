@@ -2,7 +2,7 @@
 
 Capability-equivalent of Devito's ``BornOperator``
 (/root/reference/seisgan/fwi/pde/seismic/acoustic/operators.py:168):
-single-scattering data from a model perturbation.  On TPU this is
+single-scattering data from a model perturbation.  Here this is
 exactly the JVP of the nonlinear forward operator — one
 forward-over-forward pass, no extra kernel needed.
 """

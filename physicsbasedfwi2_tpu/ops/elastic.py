@@ -1,6 +1,6 @@
 """Differentiable 2D P-SV elastic propagator.
 
-TPU-native replacement for DENISE-Black-Edition (reference
+Replacement for DENISE-Black-Edition (reference
 /root/reference/models/networks.py:7554-7878: external Fortran/MPI
 binary coupled by .su files).  Standard Virieux velocity–stress
 staggered grid (4th-order space, leapfrog time) with split-field PML

@@ -7,7 +7,7 @@ estimator is unbiased over encodings when the misfit is quadratic and
 receivers are common to all shots (true for the reference's fixed
 surface spread).
 
-TPU fit: the multi-point source injection is one scatter-add per
+Cost: the multi-point source injection is one scatter-add per
 step; super-shots ride the same vmap/shard_map axes as regular shots.
 """
 

@@ -4,8 +4,7 @@ Backprop-through-time over nt≈4000 steps cannot store every wavefield
 (the reference relies on deepwave's internal wavefield storage,
 SURVEY.md §5 "long-context").  We scan over chunks with
 `jax.checkpoint` on the inner scan: memory O(nt/chunk + chunk)
-states, compute 2x forward — the TPU-idiomatic equivalent of
-sequence-chunked remat.
+states, compute 2x forward — sequence-chunked remat.
 """
 
 from __future__ import annotations

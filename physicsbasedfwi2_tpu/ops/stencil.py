@@ -1,9 +1,6 @@
 """Staggered-grid finite-difference derivative operators.
 
-Pure-XLA implementations (static slicing + pad, fully fusible).  The
-Pallas fast path (fused full-time-loop kernel keeping wavefields in
-VMEM) lives in :mod:`physicsbasedfwi2_tpu.ops.pallas_kernels` and is
-numerically identical.
+Pure-XLA implementations (static slicing + pad, fully fusible).
 
 Conventions: fields are [nz, nx]; axis 0 = z (depth), axis 1 = x.
 ``d{x,z}_fwd`` evaluates the derivative at the staggered (i+1/2)

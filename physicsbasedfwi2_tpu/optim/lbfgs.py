@@ -6,7 +6,7 @@ cubic-interpolation Armijo/Wolfe line searches, FullBatchLBFGS
 closure API) used by the AutoElMar22LBFGS workload
 (AutoElMar22LBFGS_model.py:128-137).
 
-TPU-first design: we build on ``optax.lbfgs`` (two-loop recursion +
+Design: we build on ``optax.lbfgs`` (two-loop recursion +
 zoom linesearch, fully jittable — every line-search probe is a
 compiled forward, not an MPI/DENISE subprocess like the reference's,
 and `optax.value_and_grad_from_state` reuses the accepted probe's

@@ -1,4 +1,4 @@
-"""Device-mesh parallelism: the TPU-native replacement for the
+"""Device-mesh parallelism: the replacement for the
 reference's Ray per-shot GPU fan-out (Auto_model.py:69-199), DENISE's
 MPI domain decomposition (networks.py:7709-7710), and the
 loss_landscape mpi4py grid sweep."""
@@ -11,8 +11,6 @@ from physicsbasedfwi2_tpu.parallel.shard import (
     shot_sharded_elastic_gradient,
     sample_shot_sharded_acoustic_gradient,
     pad_shots_to_multiple,
-    pad_shots_for_fused,
-    shot_sharded_fused_acoustic_gradient,
 )
 from physicsbasedfwi2_tpu.parallel.halo import simulate_acoustic_dd
 
@@ -24,7 +22,5 @@ __all__ = [
     "shot_sharded_elastic_gradient",
     "sample_shot_sharded_acoustic_gradient",
     "pad_shots_to_multiple",
-    "pad_shots_for_fused",
-    "shot_sharded_fused_acoustic_gradient",
     "simulate_acoustic_dd",
 ]

@@ -5,7 +5,7 @@ The reference's only domain decomposition lives inside DENISE
 The Marmousi/SEAM grids fit on one chip, so the framework's default
 is shot-parallelism — but for grids exceeding per-chip HBM this
 module shards the *grid* laterally across the mesh and exchanges
-2-cell halos per time step with `lax.ppermute` over ICI.
+2-cell halos per time step with `lax.ppermute`.
 
 Layout: each device owns a slab [nzp, nxp/ndev] (no stored halo);
 before each derivative stage the needed 2-cell edge strips are

@@ -12,8 +12,8 @@ def make_mesh(n_devices: int | None = None,
     """1D device mesh over the FWI shot axis.
 
     Shots are FWI's embarrassingly parallel axis (the reference fans
-    them out over Ray GPUs / DENISE MPI ranks); on TPU they shard
-    over ICI with a single psum for the gradient reduction.
+    them out over Ray GPUs / DENISE MPI ranks); here they shard over
+    the devices with a single psum for the gradient reduction.
     """
     devs = jax.devices()
     if n_devices is not None:
@@ -25,8 +25,9 @@ def make_mesh2d(n_sample: int, n_shot: int,
                 axis_names=("sample", "shot")) -> Mesh:
     """2D {sample, shot} mesh: per-sample FWI fan-out (the
     reference's Ray remote-GPU pattern, Auto_model.py:185-199)
-    composed with shot parallelism on the inner axis (inner = faster
-    ICI neighbors on a TPU slice)."""
+    composed with shot parallelism on the inner axis.  Every GPU of
+    an NVLink host reaches every other at the same rate, so the
+    layout follows the algorithm alone."""
     devs = jax.devices()
     need = n_sample * n_shot
     if len(devs) < need:

@@ -4,7 +4,7 @@ Replaces the reference's three distribution mechanisms with one
 pattern (SURVEY.md §2.2): the model is replicated, acquisition
 arrays and observed data shard along the mesh's "shot" axis, every
 device runs the propagator + local misfit on its shard, and a single
-`psum` over ICI reduces loss and dJ/dm.
+`psum` (NCCL all-reduce on GPUs) reduces loss and dJ/dm.
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ def sample_shot_sharded_acoustic_gradient(
         cfg: AcousticConfig, *, misfit: str = "l2",
         sample_axis: str = "sample", shot_axis: str = "shot",
         direct=None):
-    """(loss, dJ/dvps) over a 2D {sample, shot} mesh — the TPU-native
+    """(loss, dJ/dvps) over a 2D {sample, shot} mesh — the
     replacement for the reference's Ray per-sample GPU fan-out
     (Auto_model.py:185-199: @ray.remote prop per sample) composed
     with shot parallelism.
@@ -143,68 +143,6 @@ def sample_shot_sharded_acoustic_gradient(
                     direct)
     denom = B * ns * nt * nr
     return loss / denom, g / denom
-
-
-def pad_shots_for_fused(wavelet, src_z, src_x, rcv_z, rcv_x, obs_rows,
-                        dir_rows, n: int):
-    """Pad the fused-kernel operands so the shot axis divides the
-    mesh: ZERO wavelet + ZERO observed/direct rows for pad shots
-    (a zero source yields zero prediction, and the kernel's
-    trace-normalize maps 0/(0+eps) -> 0, so a pad shot contributes
-    exactly zero loss and zero gradient); geometry pads repeat shot 0
-    (any valid cells do).  Returns (padded tuple, ns_real, ns_pad).
-    """
-    ns = int(src_z.shape[0])
-    ns_pad = -(-ns // n) * n
-    pad = ns_pad - ns
-    if wavelet.ndim == 1:
-        wavelet = jnp.broadcast_to(wavelet[None, :],
-                                   (ns, wavelet.shape[-1]))
-    if pad:
-        wavelet = jnp.pad(wavelet, ((0, pad), (0, 0)))
-        obs_rows = jnp.pad(obs_rows, ((0, pad), (0, 0), (0, 0)))
-        dir_rows = jnp.pad(dir_rows, ((0, pad), (0, 0), (0, 0)))
-        src_z = jnp.concatenate(
-            [src_z, jnp.broadcast_to(src_z[:1], (pad,))])
-        src_x = jnp.concatenate(
-            [src_x, jnp.broadcast_to(src_x[:1], (pad,))])
-        rcv_z = jnp.concatenate(
-            [rcv_z, jnp.broadcast_to(rcv_z[:1], (pad,) + rcv_z.shape[1:])])
-        rcv_x = jnp.concatenate(
-            [rcv_x, jnp.broadcast_to(rcv_x[:1], (pad,) + rcv_x.shape[1:])])
-    return (wavelet, src_z, src_x, rcv_z, rcv_x, obs_rows,
-            dir_rows), ns, ns_pad
-
-
-def shot_sharded_fused_acoustic_gradient(
-        mesh: Mesh, vp, wavelet, src_z, src_x, rcv_z, rcv_x,
-        cfg: AcousticConfig, obs_rows, dir_rows, *,
-        axis: str = "shot", KC: int = 32, interpret: bool = False):
-    """(loss, dJ/dvp) from the fused Pallas trace-norm-L1 kernel with
-    shots sharded over the mesh — the fused x mesh composition: each
-    device runs the fused kernel (ops/pallas_fwi_fused.py) on its
-    shot shard, a pmean over ICI recovers the global mean.
-
-    Operands must already be padded to a multiple of the mesh size
-    (:func:`pad_shots_for_fused`); pass ns_real's scale correction by
-    multiplying the returned pair by ns_pad/ns_real (each fused call
-    normalizes by its local padded count).
-    """
-    from physicsbasedfwi2_tpu.ops.pallas_fwi_fused import fwi_l1_loss_grad
-
-    @jax.jit
-    @functools.partial(
-        shard_map, mesh=mesh,
-        in_specs=(P(),) + (P(axis),) * 7,
-        out_specs=(P(), P()),
-        check_vma=False)
-    def _grad(vp, wav, sz, sx, rz, rx, obs, dirw):
-        loss, g = fwi_l1_loss_grad(vp, wav, sz, sx, rz, rx, cfg, obs,
-                                   dirw, KC=KC, interpret=interpret)
-        return lax.pmean(loss, axis), lax.pmean(g, axis)
-
-    return _grad(vp, wavelet, src_z, src_x, rcv_z, rcv_x, obs_rows,
-                 dir_rows)
 
 
 def shot_sharded_elastic_gradient(mesh: Mesh, vp, vs, rho, obs_vx, obs_vz,

@@ -346,3 +346,35 @@ def test_prep_rho_start_true_known_density(tmp_path):
             vp, str(tmp_path / "bad"), nt=80, dt=0.002, num_shots=1,
             num_receivers=4, water_rows=5, chunk=20, smooth_iters=5,
             rho_start="typo")
+
+
+def test_prep_elastic_tree_is_operator_consistent(tmp_path):
+    """fwi-prep's default elastic gathers come from the operator the
+    engine inverts with (ops.select_operator), so the from-disk
+    engine's misfit at the true model is ~0; the crime-free
+    "reference" scheme leaves a discretization misfit there."""
+    import jax.numpy as jnp
+    from physicsbasedfwi2_tpu.data import prep
+    from physicsbasedfwi2_tpu.engine import get_workload
+    from physicsbasedfwi2_tpu.engine.engines import ElasticDIPEngine
+
+    vp = np.full((36, 48), 2000.0, np.float32)
+    vp[18:] = 2600.0
+    kw = dict(nt=160, dt=0.002, num_shots=3, num_receivers=10,
+              water_rows=5, chunk=20, smooth_iters=5, rho_start="true")
+    misfit = {}
+    for scheme in ("auto", "reference"):
+        root = str(tmp_path / scheme)
+        prep.prepare_elastic_tree(vp, root, obs_scheme=scheme, **kw)
+        cfg = get_workload(
+            "marmousi_elastic", nz=36, nx=48, dx=20.0, nt=160, dt=0.002,
+            num_shots=3, num_receivers=10, water_rows=5, chunk=20,
+            filters=(4, 8), lstart=0, dataroot=root).replace(
+                name=f"t_prep_{scheme}", save_dir=str(tmp_path / "ck"))
+        eng = ElasticDIPEngine(cfg)
+        assert eng.physics_path == "fast"
+        true = jnp.stack([eng.wl.true["vp"], eng.wl.true["vs"]], -1)
+        misfit[scheme] = float(eng._physics_loss_raw(
+            true, jnp.arange(3), eng._stage_pack(0.0)))
+    assert misfit["auto"] < 1e-6, misfit
+    assert misfit["reference"] > 1e-4, misfit

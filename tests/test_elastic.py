@@ -9,8 +9,9 @@ from physicsbasedfwi2_tpu.ops import simulate_elastic, elastic_gradient, Elastic
 
 
 def small_setup(nz=50, nx=70, nt=400, dt=0.0015, dx=10.0,
-                vp0=2000.0, vs0=1200.0, rho0=2000.0, free_surface=False):
-    grid = Grid2D(nz=nz, nx=nx, dx=dx, nt=nt, dt=dt, pml_width=20,
+                vp0=2000.0, vs0=1200.0, rho0=2000.0, free_surface=False,
+                pml_width=20):
+    grid = Grid2D(nz=nz, nx=nx, dx=dx, nt=nt, dt=dt, pml_width=pml_width,
                   free_surface=free_surface)
     cfg = ElasticConfig(grid=grid, chunk=25, vmax_pml=3000.0)
     wav = ricker(12.0, nt, dt)
@@ -45,7 +46,7 @@ def test_energy_absorbed():
 
 
 def test_adjoint_dot_product():
-    cfg, wav, med, geom = small_setup(nz=40, nx=50, nt=250)
+    cfg, wav, med, geom = small_setup(nz=30, nx=40, nt=150, pml_width=10)
     vp, vs, rho = med
 
     def fwd(vp_, vs_):
@@ -67,9 +68,9 @@ def test_adjoint_dot_product():
 
 
 def test_gradient_directional_fd():
-    cfg, wav, med, geom = small_setup(nz=40, nx=50, nt=250)
+    cfg, wav, med, geom = small_setup(nz=30, nx=40, nt=150, pml_width=10)
     vp, vs, rho = med
-    vp_true = vp.at[20:30, 20:35].add(200.0)
+    vp_true = vp.at[10:20, 12:28].add(200.0)
     obs = simulate_elastic(vp_true, vs, rho, wav, *geom, cfg)
 
     def loss_fn(pred):
@@ -168,127 +169,6 @@ def test_fast_scheme_gradient_fd():
     ad = float(np.vdot(g, d))
     rel = abs(fd - ad) / max(abs(fd), 1e-20)
     assert rel < 1e-3, (fd, ad, rel)
-
-
-def test_fused_elastic_kernel_matches_autodiff_interpret():
-    """Fused elastic loss+grad kernel (interpret mode) vs jax.grad of
-    the exact-scheme JAX replica: hand-derived transpose must match
-    to f32 roundoff, and the misfit must vanish at the true model
-    when obs comes from the same operator."""
-    from physicsbasedfwi2_tpu.ops.pallas_elastic_fused import (
-        prep_medium, prep_damp, scatter_rows_el,
-        fused_elastic_loss_grad_meds, fused_elastic_loss_grad,
-        elastic_fused_reference, simulate_elastic_ring)
-    from physicsbasedfwi2_tpu.data.synthetic import (
-        make_marmousi_like, make_elastic_model)
-
-    nz, nx, nt = 36, 48, 64
-    grid = Grid2D(nz=nz, nx=nx, dx=15.0, nt=nt, dt=0.0015, pml_width=8,
-                  free_surface=True)
-    cfg = ElasticConfig(grid=grid, chunk=16, vmax_pml=4000.0)
-    vp = make_marmousi_like(nz, nx, seed=0, water_rows=4)
-    vp_t, vs_t, rho_t = make_elastic_model(vp, water_rows=4)
-    wav = ricker(12.0, nt, 0.0015)
-    ns, nr = 2, 10
-    sz = jnp.asarray([5, 5])
-    sx = jnp.asarray([10, 30])
-    rz = jnp.full((ns, nr), 5, jnp.int32)
-    rx = jnp.tile(jnp.asarray(np.linspace(3, nx - 4, nr,
-                                          dtype=np.int32)), (ns, 1))
-    ovx, ovz = simulate_elastic_ring(
-        jnp.asarray(vp_t), jnp.asarray(vs_t), jnp.asarray(rho_t),
-        wav, sz, sx, rz, rx, cfg)
-    vp_s = jnp.asarray(vp_t) * 0.95
-    meds, _ = jax.vjp(lambda a, b, c: prep_medium(a, b, c, cfg),
-                      vp_s, jnp.asarray(vs_t), jnp.asarray(rho_t))
-    damp = prep_damp(cfg)
-    ref_loss, ref_g = jax.value_and_grad(
-        lambda m: elastic_fused_reference(m, damp, wav, sz, sx, rz, rx,
-                                          cfg, ovx, ovz))(meds)
-    KC = 16
-    orx = scatter_rows_el(ovx, rx, cfg, KC=KC)
-    orz = scatter_rows_el(ovz, rx, cfg, KC=KC)
-    loss, gm = fused_elastic_loss_grad_meds(
-        meds, damp, wav, sz, sx, rz, rx, cfg, orx, orz, KC=KC,
-        interpret=True)
-    assert abs(float(ref_loss) - float(loss)) <= 1e-6 * abs(
-        float(ref_loss))
-    for a, b in zip(ref_g, gm):
-        na = float(jnp.max(jnp.abs(a)))
-        assert float(jnp.max(jnp.abs(a - b))) <= 1e-5 * (na + 1e-30)
-    # physical-field chain rule + zero misfit at the truth
-    loss_t, _ = fused_elastic_loss_grad(
-        jnp.asarray(vp_t), jnp.asarray(vs_t), jnp.asarray(rho_t),
-        wav, sz, sx, rz, rx, cfg, orx, orz, KC=KC,
-        wrt=("vp", "vs", "rho"), interpret=True)
-    assert float(loss_t) < 1e-14
-    loss_s, grads_s = fused_elastic_loss_grad(
-        vp_s, jnp.asarray(vs_t), jnp.asarray(rho_t),
-        wav, sz, sx, rz, rx, cfg, orx, orz, KC=KC,
-        wrt=("vp", "vs", "rho"), interpret=True)
-    assert float(loss_s) > 0
-    assert float(jnp.abs(grads_s["vp"]).max()) > 0
-
-
-def test_fused_elastic_tnl1_matches_autodiff_interpret():
-    """Fused elastic kernel with the trace-normalized-L1 misfit
-    (the flagship recipe) vs jax.grad of the exact-scheme replica:
-    the 4-sweep per-trace-max subgradient (ported from
-    pallas_fwi_fused) must reproduce jnp.max's tie-distributed
-    autodiff to f32 roundoff, and the misfit must vanish at the true
-    model."""
-    from physicsbasedfwi2_tpu.ops.misfit import trace_normalize
-    from physicsbasedfwi2_tpu.ops.pallas_elastic_fused import (
-        prep_medium, prep_damp, scatter_rows_el,
-        fused_elastic_loss_grad_meds, fused_elastic_loss_grad,
-        elastic_fused_reference, simulate_elastic_ring)
-    from physicsbasedfwi2_tpu.data.synthetic import (
-        make_marmousi_like, make_elastic_model)
-
-    nz, nx, nt = 36, 48, 64
-    grid = Grid2D(nz=nz, nx=nx, dx=15.0, nt=nt, dt=0.0015, pml_width=8,
-                  free_surface=True)
-    cfg = ElasticConfig(grid=grid, chunk=16, vmax_pml=4000.0)
-    vp = make_marmousi_like(nz, nx, seed=0, water_rows=4)
-    vp_t, vs_t, rho_t = make_elastic_model(vp, water_rows=4)
-    wav = ricker(12.0, nt, 0.0015)
-    ns, nr = 2, 10
-    sz = jnp.asarray([5, 5])
-    sx = jnp.asarray([10, 30])
-    rz = jnp.full((ns, nr), 5, jnp.int32)
-    rx = jnp.tile(jnp.asarray(np.linspace(3, nx - 4, nr,
-                                          dtype=np.int32)), (ns, 1))
-    ovx, ovz = simulate_elastic_ring(
-        jnp.asarray(vp_t), jnp.asarray(vs_t), jnp.asarray(rho_t),
-        wav, sz, sx, rz, rx, cfg)
-    # the tnl1 kernel consumes pre-normalized observed data
-    ovx_n, ovz_n = trace_normalize(ovx), trace_normalize(ovz)
-    vp_s = jnp.asarray(vp_t) * 0.95
-    meds, _ = jax.vjp(lambda a, b, c: prep_medium(a, b, c, cfg),
-                      vp_s, jnp.asarray(vs_t), jnp.asarray(rho_t))
-    damp = prep_damp(cfg)
-    ref_loss, ref_g = jax.value_and_grad(
-        lambda m: elastic_fused_reference(m, damp, wav, sz, sx, rz, rx,
-                                          cfg, ovx_n, ovz_n,
-                                          misfit="tnl1"))(meds)
-    KC = 16
-    orx = scatter_rows_el(ovx_n, rx, cfg, KC=KC)
-    orz = scatter_rows_el(ovz_n, rx, cfg, KC=KC)
-    loss, gm = fused_elastic_loss_grad_meds(
-        meds, damp, wav, sz, sx, rz, rx, cfg, orx, orz, KC=KC,
-        misfit="tnl1", interpret=True)
-    assert abs(float(ref_loss) - float(loss)) <= 1e-6 * abs(
-        float(ref_loss))
-    for a, b in zip(ref_g, gm):
-        na = float(jnp.max(jnp.abs(a)))
-        assert float(jnp.max(jnp.abs(a - b))) <= 1e-5 * (na + 1e-30)
-    # near-zero misfit at the truth (both sides normalized the same
-    # way; only f32 roundoff survives)
-    loss_t, _ = fused_elastic_loss_grad(
-        jnp.asarray(vp_t), jnp.asarray(vs_t), jnp.asarray(rho_t),
-        wav, sz, sx, rz, rx, cfg, orx, orz, KC=KC, misfit="tnl1",
-        wrt=("vp", "vs", "rho"), interpret=True)
-    assert float(loss_t) < 1e-9
 
 
 def test_elastic_illumination_map():

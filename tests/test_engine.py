@@ -853,7 +853,7 @@ def test_encoded_acoustic_engine_trains():
         name="t_enc", save_dir="/tmp/fwi_test_ck",
         validate_on_twin=False, encoded_shots=2)
     eng = create_engine(cfg)
-    assert not eng._use_fused
+    assert eng.physics_path == "encoded"
     losses = [eng.optimize_parameters(epoch=e)["loss_D"]
               for e in range(1, 7)]
     assert all(np.isfinite(losses))

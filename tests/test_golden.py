@@ -9,7 +9,6 @@ deliberately with REGEN_GOLDEN=1 python -m pytest tests/test_golden.py.
 
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -50,17 +49,20 @@ def _acoustic_case():
     return cfg, wav, vp, geom
 
 
-def test_golden_acoustic_traces_and_gradient():
+def acoustic_golden_arrays() -> dict:
+    """Receiver traces and the L2 gradient of the small acoustic case
+    (also recomputed on the GPU by chip_smoke.py)."""
     cfg, wav, vp, geom = _acoustic_case()
     recs = simulate_acoustic(vp, wav, *geom, cfg)
     vpt = vp.at[20:28, 15:30].add(150.0)
     obs = simulate_acoustic(vpt, wav, *geom, cfg)
     _, grad = acoustic_gradient(vp, lambda p: l2_misfit(p, obs), wav,
                                 *geom, cfg)
-    _check("acoustic_small", {"recs": recs, "grad": grad})
+    return {"recs": recs, "grad": grad}
 
 
-def test_golden_elastic_traces():
+def elastic_golden_arrays() -> dict:
+    """Receiver traces of the small split-PML elastic case."""
     grid = Grid2D(nz=32, nx=40, dx=10.0, nt=140, dt=0.0015, pml_width=10)
     cfg = ElasticConfig(grid=grid, chunk=20, vmax_pml=2800.0)
     wav = ricker(12.0, grid.nt, grid.dt)
@@ -71,25 +73,12 @@ def test_golden_elastic_traces():
     vs = jnp.full((32, 40), 1150.0, jnp.float32)
     rho = jnp.full((32, 40), 2100.0, jnp.float32)
     rvx, rvz = simulate_elastic(vp, vs, rho, wav, *geom, cfg)
-    _check("elastic_small", {"rvx": rvx, "rvz": rvz})
+    return {"rvx": rvx, "rvz": rvz}
 
 
-def test_golden_fused_acoustic_interpret():
-    """Fused loss+grad kernel (interpret mode) against committed
-    goldens — catches numerical regressions in the in-kernel misfit /
-    adjoint across refactors (e.g. KC retunes, Pallas API churn)."""
-    from physicsbasedfwi2_tpu.ops import trace_normalize
-    from physicsbasedfwi2_tpu.ops.pallas_fwi_fused import (
-        fwi_l1_loss_grad, scatter_rows)
+def test_golden_acoustic_traces_and_gradient():
+    _check("acoustic_small", acoustic_golden_arrays())
 
-    cfg, wav, vp, geom = _acoustic_case()
-    g = cfg.grid
-    vpt = vp.at[20:30, 15:35].add(150.0)
-    obs_norm = trace_normalize(simulate_acoustic(vpt, wav, *geom, cfg))
-    obs_rows = scatter_rows(obs_norm, geom[3], nt=g.nt, nx=g.nx,
-                            pml_width=g.pml_width)
-    dir_rows = jnp.zeros_like(obs_rows)
-    loss, grad = fwi_l1_loss_grad(vp, wav, *geom, cfg, obs_rows,
-                                  dir_rows, interpret=True)
-    _check("fused_acoustic_small",
-           {"loss": jnp.reshape(loss, (1,)), "grad": grad})
+
+def test_golden_elastic_traces():
+    _check("elastic_small", elastic_golden_arrays())

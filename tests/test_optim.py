@@ -87,3 +87,29 @@ def test_sghmc_runs_and_explores():
     traj = np.stack(traj)
     assert np.isfinite(traj).all()
     assert traj[1000:].std() > 0.05  # explores, not stuck
+
+
+def test_checkpoint_npz_roundtrip(tmp_path):
+    """engine/checkpoint.py stores {params, opt_state, epoch} as one
+    .npz array per pytree leaf and restores it into a template."""
+    import pytest
+    from physicsbasedfwi2_tpu.engine.checkpoint import (
+        restore_tree, save_tree)
+    params = {"params": {"Dense_0": {"kernel": jnp.arange(6.0).reshape(2, 3),
+                                     "bias": jnp.ones(3)}}}
+    opt = optax.inject_hyperparams(optax.adam)(learning_rate=0.1)
+    state = opt.init(params)
+    _, state = opt.update(params, state, params)
+    tree = {"params": params, "opt_state": state,
+            "epoch": np.asarray(7)}
+    path = save_tree(str(tmp_path / "ck" / "state"), tree)
+    assert path.endswith(".npz")
+    template = jax.tree_util.tree_map(jnp.zeros_like, tree)
+    back = restore_tree(path, template)
+    assert int(back["epoch"]) == 7
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(tree)):
+        np.testing.assert_array_equal(a, b)
+    bad = dict(template, epoch=np.zeros(2))
+    with pytest.raises(ValueError, match="shape"):
+        restore_tree(path, bad)
